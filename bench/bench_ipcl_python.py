@@ -2,7 +2,7 @@
 """google_benchmark-shaped micro-bench, drop-in compatible with the
 reference harness (/root/reference/bench/bench_ipcl_python.py): same
 BM_* registrations, arg sweep (16, 64), preset 2048-bit P/Q and QAT
-context lifecycle — but running against the TPU framework through the
+context lifecycle — but running against this framework through the
 ipcl_python alias package.
 
 Uses the real google_benchmark package when installed; otherwise a

@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
 """Federated encrypted-aggregation example on a device mesh.
 
-The flagship distributed workload (BASELINE.md): K parties encrypt their
+The flagship distributed workload: K parties encrypt their
 local update vectors under a shared public key; the aggregator sums the
 CIPHERTEXTS elementwise (HE add = modmul mod n^2) and reduces to one
-encrypted total, all sharded across a ('dcn_host', 'ici_chip') mesh —
+encrypted total, all sharded across a ('batch_outer', 'batch_inner') mesh —
 only the key holder can decrypt the result.
 
 Run anywhere:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/federated_example.py
-On a real multi-host TPU slice, set PAILLIER_COORDINATOR /
-PAILLIER_NUM_PROCESSES / PAILLIER_PROCESS_ID and the same code runs over
-ICI+DCN (parallel/distributed.initialize is called below).
+On several hosts, set PAILLIER_COORDINATOR / PAILLIER_NUM_PROCESSES /
+PAILLIER_PROCESS_ID and the same code runs across them
+(parallel/distributed.initialize is called below).
 """
 
 import os
@@ -56,7 +56,7 @@ def main():
     # elementwise encrypted aggregation (pure SPMD, no communication)
     agg = federated_aggregate(cts, pub.ctx, m)
 
-    # encrypted all-reduce to one total (ICI/DCN collectives)
+    # encrypted all-reduce to one total (one small all-gather)
     total_ct = sharded_he_sum(agg, pub.ctx, m)
 
     # only the key holder can open the results

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """End-to-end example — the integration smoke for the framework.
 
-TPU-native counterpart of /root/reference/example/ipclpy_example.py:
+Counterpart of the reference's example/ipclpy_example.py:
 encrypt/decrypt round trips, every HE op (CT+CT, CT+PT, CT*PT, matmul,
 reductions), broadcasting, pickle round trips of keys and ciphertexts,
 and a runtime-mode timing sweep (the reference sweeps QAT hybrid modes;
@@ -38,7 +38,7 @@ def main():
     ap.add_argument("--batch", type=int, default=256)
     args = ap.parse_args()
 
-    context.initializeContext("TPU")
+    context.initializeContext("GPU")
     print(f"accelerator active: {context.isQATActive()}")
 
     t0 = time.perf_counter()

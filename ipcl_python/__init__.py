@@ -1,4 +1,4 @@
-"""Drop-in import alias: `import ipcl_python` -> the TPU-native framework.
+"""Drop-in import alias: `import ipcl_python` -> pailliercryptolib_python_tpu.
 
 Mirrors the reference package surface (/root/reference/src/ipcl_python/
 __init__.py:1-11) so existing ipcl_python users switch without code

@@ -1,11 +1,11 @@
-"""pailliercryptolib_python_tpu — TPU-native Paillier cryptosystem framework.
+"""pailliercryptolib_python_tpu — batched Paillier cryptosystem framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-intel/pailliercryptolib_python (reference surface:
-/root/reference/src/ipcl_python/__init__.py:1-11): the same public HE API
+A from-scratch JAX/XLA re-design of the capabilities of
+intel/pailliercryptolib_python (reference surface: its
+src/ipcl_python/__init__.py): the same public HE API
 — PaillierKeypair / PaillierPublicKey / PaillierPrivateKey /
 PaillierEncryptedNumber, fixed-point codec, binding-level containers,
-context/hybrid controls — backed by batched limb-array kernels on TPU
+context/hybrid controls — backed by batched limb-array kernels on the GPU
 instead of AVX512IFMA C++ code.
 """
 

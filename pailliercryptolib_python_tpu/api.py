@@ -3,7 +3,7 @@
 Drop-in parity with the reference Python API
 (/root/reference/src/ipcl_python/ipcl_python.py) — same classes, operator
 algebra (SURVEY.md §2.3), exceptions and pickle state tuples — but every
-operation is re-designed batched-first for TPU:
+operation is re-designed batched-first for the device:
 
 * encode/decode are numpy-vectorized (the reference loops Python per
   element, ipcl_python.py:136-139, 238-243);
@@ -95,14 +95,12 @@ def _host_pool():
 def _hybrid_split_encrypt(pctx, encodings, apply_obfuscator):
     """Concurrent host/device encrypt split, or None when inactive.
 
-    The TPU realization of the reference's QAT:CPU work-split
+    The realization of the reference's QAT:CPU work-split
     (hybridMode ratios, ipcl_bindings.cpp:37-56): the host share of the
     batch encrypts with pure bigint pow in a worker thread WHILE the
     device program runs on the rest (the main thread's device sync
     releases the GIL, so the overlap is real).  Gated, like the
-    reference, on context.initializeContext having been called.
-    Measured on v5e (round 5): device:host throughput ~500:1, so only
-    explicitly host-leaning modes route meaningful work here."""
+    reference, on context.initializeContext having been called."""
     from .utils import config as _config
     from .utils.context import context as _context
     from .models.paillier import pad_batch

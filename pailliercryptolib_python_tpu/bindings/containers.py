@@ -1,4 +1,4 @@
-"""TPU-native container/key classes matching the reference binding surface.
+"""Container/key classes matching the reference binding surface.
 
 The reference exposes pybind11 wrappers over opaque C++ objects
 (`ipclBigNumber`, `ipclPlainText`, `ipclCipherText`, `ipclPublicKey`,

@@ -20,7 +20,7 @@ Behavioral contract is bit-exact with the reference codec
 This module adds what the reference lacks: `encode_vector` /
 `decode_vector`, numpy-vectorized fast paths used by the batched API layer
 (the reference encodes with a per-element Python loop,
-ipcl_python.py:136-139 — a real overhead the TPU build removes).
+ipcl_python.py:136-139 — a real overhead this build removes).
 """
 
 from __future__ import annotations

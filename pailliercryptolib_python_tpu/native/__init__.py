@@ -29,12 +29,19 @@ def _try_build():
         return out
     include = sysconfig.get_paths()["include"]
     cc = os.environ.get("CC", "cc")
-    cmd = [cc, "-O3", "-shared", "-fPIC", f"-I{include}", src, "-o", out]
+    # build beside the target and rename: processes that import the
+    # package at the same time never load a half-written library
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [cc, "-O3", "-shared", "-fPIC", f"-I{include}", src, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
         return out
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():

@@ -1,6 +1,6 @@
 /* Native keygen helpers: windowed trial-division sieve + limb packing.
  *
- * TPU-native counterpart of the native code paths the reference keeps in
+ * Counterpart of the native code paths the reference keeps in
  * C++ (the IPCL crypto core's primality search feeding
  * ipcl::generateKeypair, and the bindings' byte<->limb converters,
  * /root/reference/src/ipcl_python/bindings/ipcl_bindings.cpp:100-138).

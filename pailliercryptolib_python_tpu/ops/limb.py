@@ -1,15 +1,15 @@
-"""Limb-array bignum core for the TPU-native Paillier framework.
+"""Limb-array bignum core for the batched Paillier framework.
 
 A big number is a little-endian array of 16-bit limbs stored in ``uint32``
-lanes.  A *batch* of big numbers is a single ``uint32[L, B]`` array —
-limbs-major so the batch dimension rides the TPU's 128-wide vector lanes.
+words.  A *batch* of big numbers is a single ``uint32[L, B]`` array —
+limbs-major, so consecutive batch columns are adjacent in memory.
 This replaces the reference's opaque per-element C++ ``BigNumber``
 containers (see /root/reference/bindings/ipcl_bindings_classes.cpp:380-491
 and the byte contract of BNUtils, /root/reference/src/ipcl_python/
 ipcl_python.py:933-977) with one dense array the XLA compiler can tile.
 
-Why 16-bit limbs in uint32 lanes: the TPU VPU has exact 32-bit integer
-multiply, so a product of two 16-bit limbs is exact, and partial products
+Why 16-bit limbs in uint32 words: a product of two 16-bit limbs is exact
+in a 32-bit integer multiply, which every XLA backend has, and partial products
 can be accumulated in carry-save (redundant) form for hundreds of steps
 before any carry propagation is needed.  All carry propagation is deferred
 and done with a data-parallel fixpoint loop, never a serial scan.
@@ -85,8 +85,8 @@ def limbs_to_ints(arr) -> list:
 def normalize(t: jnp.ndarray) -> jnp.ndarray:
     """Carry-propagate a redundant limb array to canonical (<2^16) limbs.
 
-    Deterministic two-phase propagation (no data-dependent loop — maps
-    cleanly onto the VPU and into Pallas kernels):
+    Deterministic two-phase propagation (no data-dependent loop, so it
+    compiles to a fixed sequence of elementwise passes):
 
     1. one local pass: v_k = (t_k & 0xFFFF) + (t_{k-1} >> 16).  Since both
        terms are <= 0xFFFF, v_k < 2^17, so at most ONE carry bit remains

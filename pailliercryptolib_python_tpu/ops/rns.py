@@ -1,19 +1,18 @@
-"""RNS-Montgomery modular arithmetic — the MXU-native modexp engine.
+"""RNS-Montgomery modular arithmetic — the modexp engine for big chains.
 
 Implements docs/RNS_DESIGN.md: big-integer values live as residues over
 two bases of 16-bit prime channels (B, B') plus one redundant channel
 (Shenoy-Kumaresan), so a modular multiplication is
 
-  * a handful of ELEMENTWISE channel passes (VPU) — no carries, no
-    O(L)-deep schoolbook convolution, and
-  * two constant-matrix base extensions (MXU matmuls with shared
-    weights) — the quadratic term of positional-limb arithmetic moved
-    onto the systolic array.
+  * a handful of ELEMENTWISE channel passes — no carries, no O(L)-deep
+    schoolbook convolution, and
+  * two constant-matrix base extensions (matmuls of centered bytes with
+    shared weights, exact by range analysis) — the quadratic term of
+    positional-limb arithmetic moved into matrix products.
 
-This replaces the VPU schoolbook product that bounds the positional-limb
-kernels (ops/pallas_mont*.py) for the CRT-decrypt exponentiation — the
-role the reference delegates to IPP-Crypto's ``mbx_exp_mb8`` inside
-``ipcl::PrivateKey::decrypt`` (/root/reference/README.md:32).
+This engine carries the CRT-decrypt exponentiation, ct*pt and the DJN
+encrypt comb — the role the reference delegates to IPP-Crypto's
+``mbx_exp_mb8`` inside ``ipcl::PrivateKey::decrypt``.
 
 Number-system conventions
 -------------------------
@@ -88,10 +87,6 @@ def _channels_for(mbits: int):
         logMk = sum(float(np.log2(primes[2 * i])) for i in range(k))
         if logMk >= need + 1:
             break
-    # (Round-5 measured NEGATIVE: rounding k up to a multiple of 8 for
-    # sublane-aligned row slices was within noise at tb=128 and ~2%
-    # slower at tb=256 — Mosaic handles the unaligned slices fine, so
-    # the minimal channel count wins.)
     mods_B = [primes[2 * i] for i in range(k)]
     mods_Bp = [primes[2 * i + 1] for i in range(k)]
     m_r = primes[2 * k]
@@ -140,7 +135,7 @@ class RnsBase:
     W_hi: jnp.ndarray
     K1g: jnp.ndarray         # (k, 1) |(M/m_i)^-1|_{m_i}   (true-form xi mult)
     K2g: jnp.ndarray         # (k, 1) |(M'/m'_j)^-1|_{m'_j}
-    exit_c: jnp.ndarray      # (3, 1): [|2^48 M^-1|, |M^-1 2^16|, 1]_{m_r}
+    exit_c: jnp.ndarray      # (3, 1): [|2^32 M'^-1|, |M'^-1|, 1]_{m_r}
     K2s: jnp.ndarray         # (k, 1) |K2g 2^-16|_{m'_j}  (Shoup xi' value)
     K2sh: jnp.ndarray        # (k, 1) floor(K2s 2^16 / m'_j)
     K1gs: jnp.ndarray        # (k, 1) |K1g 2^-16|_{m_i}   (Shoup exit xi)
@@ -219,9 +214,7 @@ class RnsBase:
             1,
         ], dtype=np.uint32)[:, None]
         # Plane-accumulator bound: S_A/S_B < 2k*255^2 must fit int32
-        # (=> k < 16500) — both the XLA int8 dot_general path and the
-        # Pallas centered-int8 MXU kernel accumulate in int32 (the
-        # round-4 bf16 kernel's k <= 900 f32-exactness bound is gone).
+        # (=> k < 16500); _byte_dot's own bound (k <= 1024) is tighter.
         assert 2 * k * 255 * 255 < (1 << 31)
         def shoup_col(vals, mlist):
             pairs = [_shoup_pair(int(v) * pow(1 << 16, -1, mi), mi)
@@ -318,11 +311,8 @@ class RnsModulus:
 
 @lru_cache(maxsize=32)
 def modulus_vectors(mbits: int, m: int) -> dict:
-    """Per-(base, m) channel constant vectors as NUMPY arrays (host).
-
-    Shared by RnsModulus.build and the Pallas kernel packer — the latter
-    runs at trace time where the pytree leaves are tracers, so constants
-    must be rebuilt from the static ints (mbits, m)."""
+    """Per-(base, m) channel constant vectors as NUMPY arrays (host),
+    for RnsModulus.build."""
     base = RnsBase.for_bits(mbits)
     k, M, Mp, m_r = base.k, base.M, base.Mp, base.m_r
     mods_B, mods_Bp = base.mods_B_int, base.mods_Bp_int
@@ -363,12 +353,7 @@ def modulus_vectors(mbits: int, m: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _csub(r, mods):
-    """One conditional subtract (r < 2m -> < m).
-
-    (Round-5 note: the unsigned wrap-minimum formulation — one VPU op
-    instead of compare+select — fails to legalize in this Mosaic
-    toolchain: 'arith.minui' on vector<8x128xi32> is unsupported, so
-    the explicit compare stands.)"""
+    """One conditional subtract (r < 2m -> < m)."""
     return jnp.where(r >= mods, r - mods, r)
 
 
@@ -409,10 +394,10 @@ def _cmul_shoup(a, c, ch, mods):
     a < 2^16 reduced, c < m a CONSTANT with companion
     ch = floor(c * 2^16 / m).  q = (a*ch) >> 16 is within 1 of
     floor(a*c/m), so r = a*c - q*m (wrapping uint32, exact since
-    0 <= r < 2m < 2^32) needs one conditional subtract.  ~8 VPU ops
-    against _cmul's ~14 — used for the xi / xi' passes of every
-    RNS-Montgomery product (round-5 lever).  NOTE: no 2^-16 REDC scale —
-    fold it into the constant."""
+    0 <= r < 2m < 2^32) needs one conditional subtract.  ~8 elementwise
+    ops against _cmul's ~14 — used for the xi / xi' passes of every
+    RNS-Montgomery product.  NOTE: no 2^-16 REDC scale — fold it into
+    the constant."""
     q = (a * ch) >> 16
     r = a * c - q * mods
     return _csub(r, mods)
@@ -429,8 +414,8 @@ def _cmul2(a, b, c, d, mods, n0):
 
     One REDC serves BOTH products: 4 uint32 multiplies instead of the 6
     (plus an addmod) that two _cmuls cost — the u32 vector multiply is
-    the expensive VPU primitive, so the hot chain uses this wherever it
-    sums two products (measured round 5).  Inputs < m; exact: P+Q is
+    the costly elementwise primitive, so the hot chain uses this wherever
+    it sums two products.  Inputs < m; exact: P+Q is
     carried as split (lo, hi) halves, every intermediate < 2^32."""
     P = a * b
     Q = c * d
@@ -452,29 +437,44 @@ def _addmod(a, b, mods):
     return _csub(a + b, mods)
 
 
+def _byte_dot(w, xc):
+    """Exact int32 product of centered byte matrices: w (out, k) and
+    xc (k, B), entries in [-128, 127].
+
+    Runs as a bf16 x bf16 -> f32 matmul: bytes are exact in bf16, each
+    product is below 2^14 in magnitude and every partial sum below 2^24
+    while k <= 1024, so the result is exact whatever order the GEMM sums
+    in.  (XLA's s8 x s8 -> s32 GEMM on the H100 returned wrong sums at
+    batch widths 16 and 32.)"""
+    if w.shape[1] > 1024:
+        raise ValueError(f"_byte_dot: contraction {w.shape[1]} > 1024 "
+                         f"is not exact in f32")
+    out = lax.dot_general(w.astype(jnp.bfloat16), xc.astype(jnp.bfloat16),
+                          (((1,), (0,)), ((), ())),
+                          preferred_element_type=jnp.float32)
+    return out.astype(jnp.int32)
+
+
 def _plane_dots(x, W_lo, W_hi):
     """Byte-plane matmuls: x (k_in, B) uint32 16-bit values against the
     (out, k_in) byte planes.  Returns S00, mid, S11 int32 (out, B).
 
-    Runs as CENTERED int8 matmuls so the contraction rides the MXU
-    (int8 x int8 -> int32): with x' = x - 128 and w' = w - 128,
-    sum(x*w) = dot(x', w') + 128*sum(x') + 128*sum(w') + 128^2*k — the
-    corrections are a per-column scalar (one VPU reduction), a
-    per-row constant (folds at trace time), and a literal.  Exact: every
-    int8 product sums over k_in < 2^9 terms, |dot| < 2^23 < int32."""
+    Runs as CENTERED byte matmuls (_byte_dot): with x' = x - 128 and
+    w' = w - 128, sum(x*w) = dot(x', w') + 128*sum(x') + 128*sum(w')
+    + 128^2*k — the corrections are a per-column scalar (one reduction),
+    a per-row constant (folds at trace time), and a literal."""
     k_in = x.shape[0]
     x0 = (x & 0xFF).astype(jnp.int32)
     x1 = (x >> 8).astype(jnp.int32)
-    x0c = (x0 - 128).astype(jnp.int8)
-    x1c = (x1 - 128).astype(jnp.int8)
-    Wl = (W_lo - 128).astype(jnp.int8)
-    Wh = (W_hi - 128).astype(jnp.int8)
+    x0c = x0 - 128
+    x1c = x1 - 128
+    Wl = W_lo - 128
+    Wh = W_hi - 128
     cl = jnp.sum(W_lo - 128, axis=1, keepdims=True)      # (out, 1) int32
     chi = jnp.sum(W_hi - 128, axis=1, keepdims=True)
     s0 = jnp.sum(x0, axis=0, keepdims=True) - 128 * k_in  # (1, B) = sum x0'
     s1 = jnp.sum(x1, axis=0, keepdims=True) - 128 * k_in
-    dot = partial(lax.dot_general, dimension_numbers=(((1,), (0,)), ((), ())),
-                  preferred_element_type=jnp.int32)
+    dot = _byte_dot
     off = 128 * 128 * k_in
     S00 = dot(Wl, x0c) + 128 * s0 + 128 * cl + off
     S11 = dot(Wh, x1c) + 128 * s1 + 128 * chi + off
@@ -489,22 +489,20 @@ def _plane_dots_dual(x, C_lo, C_hi, D_lo, D_hi):
     S_A = C_lo.x0 + D_lo.x1 and S_B = C_hi.x0 + D_hi.x1 (exact int32),
     so the true dot is S_A + 2^8*S_B: the mid byte-plane's 2^8 factor is
     PRE-REDUCED into the D weights, leaving two accumulators instead of
-    three — same centered-int8 MXU MAC count, but the per-row reduction
-    collapses to _combine_dual's single 16-bit REDC (round-5 lever)."""
+    three — same centered-byte MAC count, but the per-row reduction
+    collapses to _combine_dual's single 16-bit REDC."""
     k_in = x.shape[0]
     x0 = (x & 0xFF).astype(jnp.int32)
     x1 = (x >> 8).astype(jnp.int32)
-    x0c = (x0 - 128).astype(jnp.int8)
-    x1c = (x1 - 128).astype(jnp.int8)
+    x0c = x0 - 128
+    x1c = x1 - 128
     s0 = jnp.sum(x0, axis=0, keepdims=True) - 128 * k_in
     s1 = jnp.sum(x1, axis=0, keepdims=True) - 128 * k_in
-    dot = partial(lax.dot_general, dimension_numbers=(((1,), (0,)), ((), ())),
-                  preferred_element_type=jnp.int32)
     off = 128 * 128 * k_in
 
     def cdot(W, xc, s):
         c = jnp.sum(W - 128, axis=1, keepdims=True)
-        return dot((W - 128).astype(jnp.int8), xc) + 128 * s + 128 * c + off
+        return _byte_dot(W - 128, xc) + 128 * s + 128 * c + off
 
     S_A = cdot(C_lo, x0c, s0) + cdot(D_lo, x1c, s1)
     S_B = cdot(C_hi, x0c, s0) + cdot(D_hi, x1c, s1)
@@ -518,8 +516,8 @@ def _combine_dual(S_A, S_B, mods, n0, nlev: int):
     B1 = S_B >> 8; ONE 16-bit REDC pass reduces t, B1 adds in directly,
     and a short binary conditional-subtract chain (nlev levels, host-
     computed via combine_levels from the exact accumulator bounds)
-    canonicalizes.  ~24 VPU ops against the 3-accumulator radix-2^32
-    pass's ~37."""
+    canonicalizes.  ~24 elementwise ops against the 3-accumulator
+    radix-2^32 pass's ~37."""
     t = S_A.astype(jnp.uint32) + ((S_B.astype(jnp.uint32) & 0xFF) << 8)
     B1 = (S_B >> 8).astype(jnp.uint32)
     tl = t & MASK16
@@ -553,8 +551,8 @@ def _combine_planes(S00, mid, S11, mods, n032):
     (mid splits at 2^23 so both halves fit uint32).  ONE radix-2^32
     Montgomery pass reduces it: u = A * (-m^-1) mod 2^32 (wrapping u32
     multiplies), T = A + u*m === 0 mod 2^32, output T / 2^32 < 2m.
-    Saves a multiply and ~9 VPU ops per row over the round-4 two-pass
-    16-bit REDC (and retires the |2^15| fold constant)."""
+    Saves a multiply and ~9 elementwise ops per row over a two-pass
+    16-bit REDC."""
     lo = (mid & ((1 << 23) - 1)).astype(jnp.uint32)
     hi = (mid >> 23).astype(jnp.uint32)
     t = S00.astype(jnp.uint32) + (lo << 8)
@@ -579,8 +577,8 @@ def rns_mont_mul(X, Y, base: RnsBase, key: RnsModulus):
 
     Inputs/outputs are channel-Montgomery residues of values < (k+2)m.
     Steps (docs/RNS_DESIGN.md sketch, with SK exact second extension):
-    channel square/mul; xi on B; MXU-extend to B'+m_r; r' on B'+m_r;
-    xi' on B'; MXU-extend back; SK offset from the redundant channel."""
+    channel square/mul; xi on B; matmul-extend to B'+m_r; r' on B'+m_r;
+    xi' on B'; matmul-extend back; SK offset from the redundant channel."""
     k = base.k
     nlev = combine_levels(base.mbits)
     mods, n0 = base.mods, base.n0
@@ -611,14 +609,13 @@ def rns_mont_mul(X, Y, base: RnsBase, key: RnsModulus):
 
 
 def residue_fold_limbs(T, C_lo, C_hi, Lh: int):
-    """Positional residue fold on the MXU: (K, B) canonical limbs of a
+    """Positional residue fold as a matmul: (K, B) canonical limbs of a
     wide value X -> (Lh+2, B) canonical limbs of V === X (mod m),
     V < m * 2^(16 + log2 K).
 
     C byte planes hold the limbs of 2^(16l) mod m ((Lh, K) each), so
-    V = sum_l T_l * C[:, l] is one byte-plane matmul group — the
-    128-step positional REDC loop this replaces was the CRT decrypt's
-    stage-1 cost (round 5: 48 ms -> ~4 ms at 2048/B=32768).  Bounds:
+    V = sum_l T_l * C[:, l] is one byte-plane matmul group in place of
+    a 128-step positional REDC loop.  Bounds:
     S00/mid/S11 < 2*K*255^2 (int32-exact for K < 33000); the combined
     carry-save rows stay < 2^32."""
     B = T.shape[1]
@@ -680,8 +677,7 @@ def exit_redc_iters(base: RnsBase, L: int) -> int:
     serves (m >= 2^(mbits-16)), and that every limb row above L has
     shifted out.  Folding 2^(16j) into k4/k5 replaces the full
     L-iteration reduction (L=257 at the 2048-bit encrypt exit) with
-    ~4-5 steps — the exit was ~40% of the encrypt chain's fixed cost
-    (round 5)."""
+    ~4-5 steps."""
     j1 = -(-((base.k * base.M).bit_length() - (base.mbits - 16) + 2) // 16)
     j2 = base.L_W - L
     return max(j1, j2, 1)
@@ -786,16 +782,7 @@ def rns_exp_shared(X, digits, base: RnsBase, key: RnsModulus,
                    window: int):
     """X^e * M-domain chain: X is the entered state (value c*M); digits
     are the shared exponent's MSB-first base-2^window digits (traced).
-    Returns the state of c^e * M.
-
-    On TPU this dispatches to the VMEM-resident Pallas kernel
-    (ops/pallas_rns.py); the jnp body below is the CPU/verification
-    path (bit-identical)."""
-    if mg._on_tpu():
-        from . import pallas_rns
-        if pallas_rns.tb_for(base.CH, window):
-            return pallas_rns.rns_exp_shared_p(X, digits, base, key,
-                                               window)
+    Returns the state of c^e * M."""
     B = X.shape[1]
     tsize = 1 << window
     entries = [rns_one_state(base, key, B), X]
@@ -872,13 +859,11 @@ def rns_exp_sched(X, sched, base: RnsBase, key: RnsModulus,
     """Sliding-window shared-exponent chain: X the entered state (value
     c*M), sched from sliding_schedule (traced).  Table holds only the
     2^(window-1) ODD powers c^1, c^3, ...  Returns the state of
-    c^e * M.  TPU dispatches to the Pallas kernel; the jnp body is the
-    CPU/verification path (bit-identical, pad squarings included)."""
-    if mg._on_tpu():
-        from . import pallas_rns
-        if pallas_rns.sched_tb(base.CH, window, X.shape[1]):
-            return pallas_rns.rns_exp_sched_p(X, sched, base, key,
-                                              window)
+    c^e * M.
+
+    The table row is read at an index derived from the exponent's
+    digits: with the secret exponents p-1 and q-1 of CRT decryption, the
+    access pattern depends on the key (README, timing side channels)."""
     B = X.shape[1]
     tsize = 1 << (window - 1)
     c2 = rns_mont_mul(X, X, base, key)
@@ -911,12 +896,7 @@ def rns_crt_exp_sched(v_limbs, sched, base: RnsBase, key: RnsModulus,
 def rns_exp_elem(X, digits, base: RnsBase, key: RnsModulus, window: int):
     """Per-element-exponent chain (the ct*pt path): digits (n_win, B)
     MSB-first base-2^window digits, one exponent per batch column.
-    Returns the state of c^e * M.  TPU dispatches to the Pallas kernel
-    (one-hot table select); the jnp body is the CPU/verification path."""
-    if mg._on_tpu():
-        from . import pallas_rns
-        if pallas_rns.tb_for(base.CH, window):
-            return pallas_rns.rns_exp_elem_p(X, digits, base, key, window)
+    Returns the state of c^e * M."""
     B = X.shape[1]
     tsize = 1 << window
     entries = [rns_one_state(base, key, B), X]
@@ -956,19 +936,12 @@ def rns_comb_product(ct_raw, comb_rns, digits, base: RnsBase,
     n_win = digits.shape[0]
     X = rns_enter(ct_raw, base, key)
 
-    def mul(a, b):
-        if mg._on_tpu():
-            from . import pallas_rns
-            if pallas_rns.tb_for(base.CH, 0):
-                return pallas_rns.rns_mul_p(a, b, base, key)
-        return rns_mont_mul(a, b, base, key)
-
     def body(j, acc):
         slab = lax.dynamic_index_in_dim(comb_rns, j, axis=0,
                                         keepdims=False)  # (CH, 2^w)
         dig = lax.dynamic_slice_in_dim(digits, j, 1, axis=0)[0]
         fac = jnp.take(slab, dig.astype(jnp.int32), axis=1)
-        return mul(acc, fac)
+        return rns_mont_mul(acc, fac, base, key)
 
     Z = lax.fori_loop(0, n_win, body, X)
     z_limbs = _exit_limbs(Z, base)

@@ -1,18 +1,17 @@
-"""Multi-host wiring: jax.distributed lifecycle for DCN-spanning meshes.
+"""Multi-host wiring: jax.distributed lifecycle for meshes across hosts.
 
 The reference has no distribution layer at all — federated-learning users
 pickle ciphertexts between processes (SURVEY.md §2.4).  Here multi-host
 runs are first-class: every host calls :func:`initialize` before touching
 devices, then :func:`pailliercryptolib_python_tpu.parallel.mesh.make_mesh`
-lays hosts on the DCN axis and local chips on the ICI axis, and the
-sharded collectives in parallel/collective.py ride the right fabric.
+lays hosts on the outer mesh axis and each host's devices on the inner
+axis, and the sharded collectives in parallel/collective.py span both.
 
 Single-process (and CPU-simulated) runs work without any of this; the
 helpers below are no-ops when no multi-host environment is detected.
 
 Environment contract (standard JAX coordinator bootstrap):
-  PAILLIER_COORDINATOR   "host:port" of process 0 (or JAX's own
-                         auto-detection on Cloud TPU pods)
+  PAILLIER_COORDINATOR   "host:port" of process 0
   PAILLIER_NUM_PROCESSES number of participating host processes
   PAILLIER_PROCESS_ID    this host's rank in [0, num_processes)
 """
@@ -70,10 +69,9 @@ def initialize(coordinator_address: str | None = None,
     if coordinator_address is None:
         info = launch_info_from_env()
         if info is None:
-            # No launch contract: single-process run. (On TPU pods one
-            # could call jax.distributed.initialize() with no args, but
-            # doing that implicitly would hang non-pod environments
-            # waiting for a coordinator.)  NOTE: do not touch
+            # No launch contract: single-process run.  (Calling
+            # jax.distributed.initialize() with no arguments would wait
+            # for a coordinator that does not exist.)  NOTE: do not touch
             # jax.process_count() before this decision — any backend
             # probe forecloses jax.distributed.initialize for good.
             return False

@@ -12,8 +12,8 @@ per device shard, so the compiled program provably contains no
 batch-axis collective (asserted by tests/test_parallel.py's HLO audit).
 
 The reference runs decrypt as a single-host CPU loop inside
-ipcl::PrivateKey::decrypt (/root/reference/README.md:32) — it has no
-multi-device story at all (SURVEY.md §2.4).
+ipcl::PrivateKey::decrypt — it has no multi-device story at all
+(SURVEY.md §2.4).
 """
 
 from __future__ import annotations
@@ -23,9 +23,9 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import montgomery as mg
-from .mesh import DCN_AXIS, ICI_AXIS
+from .mesh import OUTER_AXIS, INNER_AXIS
 
-_SPEC_CT = P(None, (DCN_AXIS, ICI_AXIS))
+_SPEC_CT = P(None, (OUTER_AXIS, INNER_AXIS))
 
 _DEC_CACHE: dict = {}
 _MUL_CACHE: dict = {}
@@ -40,8 +40,7 @@ def sharded_decrypt(priv, ct: jnp.ndarray, mesh: Mesh) -> jnp.ndarray:
     shard), so no cross-device traffic exists anywhere in the chain.
 
     B must divide the mesh size evenly (shard_batch's contract)."""
-    from ..models.paillier import (
-        _crt_stage_exp_half, _crt_stage_exp, _crt_stage_recombine)
+    from ..models.paillier import _crt_stage_exp, _crt_stage_recombine
 
     B = ct.shape[1]
     assert B % mesh.size == 0, "sharded_decrypt: B must divide mesh size"
@@ -55,12 +54,6 @@ def sharded_decrypt(priv, ct: jnp.ndarray, mesh: Mesh) -> jnp.ndarray:
             base_m = priv._stage_reduce(ct_blk)
             if priv.use_rns:
                 u_p, u_q = priv._rns_exp_halves(base_m)
-                u = jnp.concatenate([u_p, u_q], axis=1)
-            elif priv._sq_p.wmu is not None:
-                u_p = _crt_stage_exp_half(base_m[:, :Bloc], priv._sq_p,
-                                          priv.dig_p, priv.dec_window)
-                u_q = _crt_stage_exp_half(base_m[:, Bloc:], priv._sq_q,
-                                          priv.dig_q, priv.dec_window)
                 u = jnp.concatenate([u_p, u_q], axis=1)
             else:
                 u = _crt_stage_exp(base_m, sq_ctx, priv.exp_digits_pq,
@@ -83,14 +76,15 @@ def sharded_mul_pt(pub, ct: jnp.ndarray, exponents: list,
     chain (RNS per-element kernel when planned, else the positional-limb
     windowed chain) runs entirely within each shard."""
     from ..ops import rns as _rns
-    from ..models.paillier import WINDOW
+    from ..models.paillier import WINDOW, window_for
 
     B = ct.shape[1]
     assert B % mesh.size == 0, "sharded_mul_pt: B must divide mesh size"
     exps = list(exponents) + [0] * (B - len(exponents))
     rplan = pub._rns_mul_plan()
     if rplan is not None:
-        base, rkey, w = rplan
+        base, rkey = rplan
+        w = window_for(pub.bits)
         n_win = -(-pub.bits // w)
         digits = mg.exponent_digits(exps, n_win, w)
     else:

@@ -3,9 +3,9 @@
 The reference exposes QAT accelerator lifecycle and a QAT/CPU work-split
 policy (py_ipclContext / py_ipclHybridControl / ipcl::HybridMode,
 /root/reference/src/ipcl_python/bindings/include/ipcl_bindings.hpp:27-42,
-ipcl_bindings.cpp:37-56).  On TPU the accelerator IS the modexp path, so
+ipcl_bindings.cpp:37-56).  Here the accelerator IS the modexp path, so
 a literal QAT:CPU modexp ratio would only slow things down.  The honest
-TPU analog of the work-split knob is HOST/DEVICE PIPELINING: encryption
+analog of the work-split knob is HOST/DEVICE PIPELINING: encryption
 has a real host stage (fixed-point encode, limb packing, OS-entropy
 digit sampling) and a device stage (the comb product chain), and
 `setHybridMode` now controls how finely `PublicKey.encrypt` chunks a
@@ -57,7 +57,7 @@ class context:
     """Accelerator runtime lifecycle (py_ipclContext parity).
 
     `initializeContext("QAT")` in the reference spins up the QuickAssist
-    runtime; here any accelerator choice maps onto the ambient JAX TPU
+    runtime; here any accelerator choice maps onto JAX's default GPU
     backend (initialization is implicit in JAX), so these report state
     rather than mutate it.
     """
@@ -79,14 +79,12 @@ class context:
 
     @staticmethod
     def isQATRunning() -> bool:
-        """True when an accelerator (TPU) backend is live and initialized."""
+        """True when the GPU backend is JAX's default and the context is
+        initialized."""
         if not context._initialized:
             return False
-        try:
-            import jax
-            return any(d.platform != "cpu" for d in jax.devices())
-        except Exception:
-            return False
+        from ..ops.montgomery import platform
+        return platform() == "gpu"
 
     @staticmethod
     def isQATActive() -> bool:

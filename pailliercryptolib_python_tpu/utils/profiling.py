@@ -1,7 +1,7 @@
 """Tracing/profiling hooks (SURVEY.md §5 tracing row).
 
 The reference's observability is per-test wall-clock prints and a
-google_benchmark harness; here the framework wires the real TPU
+google_benchmark harness; here the framework wires the real device
 profiler: `trace(dir)` captures a jax.profiler trace viewable in
 TensorBoard/Perfetto, and `annotate(name)` scopes device ops so HE-level
 phases (encrypt / obfuscate / CRT decrypt / reduce) show up as named
@@ -41,7 +41,7 @@ def annotate(name: str):
 @contextlib.contextmanager
 def timed(label: str, sink=None):
     """Host wall-clock span: appends (label, seconds) to `sink` (a list)
-    or prints to stderr.  The TPU analog of the reference's per-test
+    or prints to stderr.  The analog of the reference's per-test
     timing prints (/root/reference/tests/ipcl_python_test.py:17-19)."""
     import sys
 

@@ -1,10 +1,11 @@
 """Package build: pure-Python + one plain C extension (no pybind11/CMake).
 
-The reference needs a CMake superbuild fetching two external C++ trees
-(/root/reference/setup.py:39-45, CMakeLists.txt); here the compute path
-is JAX/Pallas so the only native piece is the host-side keygen sieve /
-limb packer, built as a standard setuptools extension with a Python
-fallback when no toolchain exists.
+The reference needs a CMake superbuild fetching two external C++ trees;
+here the compute path is JAX plus one CUDA kernel (ops/mont_mul.cu,
+shipped as source and built with nvcc at first use on a GPU), so the
+only native piece built here is the host-side keygen sieve / limb
+packer, a standard setuptools extension with a Python fallback when no
+toolchain exists.
 """
 
 from setuptools import Extension, find_packages, setup
@@ -28,9 +29,10 @@ class OptionalBuildExt(build_ext):
 setup(
     name="pailliercryptolib_python_tpu",
     version="2.0.0",
-    description="TPU-native Paillier cryptosystem framework (JAX/Pallas)",
+    description="Batched Paillier cryptosystem framework (JAX, CUDA)",
     packages=find_packages(include=["pailliercryptolib_python_tpu*"]),
-    package_data={"pailliercryptolib_python_tpu.native": ["*.c"]},
+    package_data={"pailliercryptolib_python_tpu.native": ["*.c"],
+                  "pailliercryptolib_python_tpu.ops": ["*.cu"]},
     ext_modules=[
         Extension(
             "pailliercryptolib_python_tpu.native._paillier_native",

@@ -2,7 +2,7 @@
 
 Launched by tests/test_distributed_2proc.py with the PAILLIER_* env
 contract (parallel/distributed.py).  Each process owns ONE CPU device
-(the DCN axis is the process axis); the workload is the sharded HE sum —
+(the outer mesh axis is the process axis); the workload is the sharded HE sum —
 a genuine cross-process collective over the batch axis.
 
 Prints "RESULT <int>" (the decrypted HE total) on process 0.

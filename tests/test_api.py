@@ -340,7 +340,7 @@ def test_hybrid_host_device_split(keys):
     """With the accelerator context initialized, PREF_IPP*/HALF modes
     route a mode-proportional slice of each encrypt batch to the
     CONCURRENT host bigint path (the reference's QAT:CPU work split
-    made real — r4 VERDICT missing #1); results are indistinguishable
+    made real); results are indistinguishable
     and decrypt exactly."""
     import numpy as np
     from pailliercryptolib_python_tpu.utils.context import (

@@ -107,9 +107,9 @@ def test_profiling_hooks():
 
 def test_fixed_shape_covers_encrypt_h2d():
     """Under fixed_shape_ops the encrypt H2D packing is magnitude-
-    independent: small payloads transfer the full Ln limbs (VERDICT r4
-    weak #6 — without the gate, batch max bit-length leaked through
-    transfer size/time even in the hardened mode)."""
+    independent: small payloads transfer the full Ln limbs (without the
+    gate, batch max bit-length leaked through transfer size/time even in
+    the hardened mode)."""
     pub = _mk_pub(0)
     small, large = 12, pub.n.bit_length() - 1
     # default mode: small payloads take the bucketed fast path
@@ -123,27 +123,3 @@ def test_fixed_shape_covers_encrypt_h2d():
         assert arr.shape[0] == pub.Ln
     finally:
         cfg.set_config(fixed_shape_ops=False)
-
-
-def test_pack_cache_bounded():
-    """pallas_rns per-key constant bundles are LRU-bounded (they key on
-    secret-derived moduli; unbounded growth would retain key material
-    for process lifetime) and evictable per key."""
-    from pailliercryptolib_python_tpu.ops import pallas_rns as pr
-    from pailliercryptolib_python_tpu.utils.fixtures import fixed_key_ints
-
-    saved = dict(pr._PACK_CACHE)
-    pr._PACK_CACHE.clear()
-    try:
-        kd = fixed_key_ints(256, enable_DJN=True)
-        psq, qsq = kd["p"] ** 2, kd["q"] ** 2
-        mbits = -(-max(psq.bit_length(), qsq.bit_length()) // 64) * 64
-        pr.pack(mbits, psq)
-        pr.pack(mbits, qsq)
-        assert len(pr._PACK_CACHE) <= pr._PACK_CACHE_MAX
-        pr.pack_evict(psq)
-        assert all(ck[1] != psq for ck in pr._PACK_CACHE)
-        assert any(ck[1] == qsq for ck in pr._PACK_CACHE)
-    finally:
-        pr._PACK_CACHE.clear()
-        pr._PACK_CACHE.update(saved)

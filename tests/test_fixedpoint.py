@@ -1,13 +1,13 @@
-"""Fixed-point codec: bit-exact parity against the REFERENCE implementation.
+"""Fixed-point codec: bit-exact parity with the reference codec.
 
-The reference codec (/root/reference/src/ipcl_python/bindings/
-fixedpoint.py) is pure Python, so it loads directly as the oracle — every
-encode/decode here must match it bit-for-bit (BASELINE.md parity gate).
+The oracle (tests/_fixedpoint_oracle.py) transcribes the reference's
+formulas without importing this package; every encode/decode here must
+match it bit-for-bit, error types and messages included.
 """
 
-import importlib.util
-import math
+import os
 import random
+import sys
 
 import numpy as np
 import pytest
@@ -15,17 +15,9 @@ import pytest
 from pailliercryptolib_python_tpu.fixedpoint import (
     FixedPointNumber, FixedPointEndec, encode_vector, decode_vector)
 
-REF_PATH = "/root/reference/src/ipcl_python/bindings/fixedpoint.py"
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _fixedpoint_oracle as ref  # noqa: E402
 
-
-def _load_reference():
-    spec = importlib.util.spec_from_file_location("ref_fixedpoint", REF_PATH)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-ref = _load_reference()
 rng = random.Random(11)
 
 N = (1 << 255) - 19  # any modulus-like value works for codec parity

@@ -1,7 +1,7 @@
 """Oracle tests: limb-array ops against Python big-int arithmetic.
 
 The reference has no such tests (SURVEY.md §4 notes the gap); these are
-the foundation-layer unit tests the TPU build adds.
+the foundation-layer unit tests this build adds.
 """
 
 import random

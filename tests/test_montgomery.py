@@ -89,8 +89,8 @@ def test_mont_exp_shared():
     xs = [rng.randrange(n) for _ in range(5)]
     e = rng.getrandbits(120)
     n_win = -(-120 // 4)
-    digits = jnp.asarray(mg.exponent_digits([e], n_win, 4, msb_first=True)[:, 0])
-    got = leave(mg.mont_exp_shared(enter(xs, ctx), digits, ctx, window=4), ctx)
+    digits = jnp.asarray(mg.exponent_digits([e], n_win, 4, msb_first=True))
+    got = leave(mg.mont_exp(enter(xs, ctx), digits, ctx, window=4), ctx)
     assert got == [pow(x, e, n) for x in xs]
 
 
@@ -106,8 +106,8 @@ def test_per_element_moduli():
     assert got == [(x * y) % n for x, y, n in zip(xs, ys, ns)]
     # shared exponent across distinct moduli (the CRT decrypt pattern)
     e = rng.getrandbits(64)
-    digits = jnp.asarray(mg.exponent_digits([e], 16, 4, msb_first=True)[:, 0])
-    got = leave(mg.mont_exp_shared(am, digits, ctx, window=4), ctx)
+    digits = jnp.asarray(mg.exponent_digits([e], 16, 4, msb_first=True))
+    got = leave(mg.mont_exp(am, digits, ctx, window=4), ctx)
     assert got == [pow(x, e, n) for x, n in zip(xs, ns)]
 
 

@@ -118,34 +118,6 @@ def test_plain_paillier_no_djn():
     assert priv.decrypt_to_ints(ct, 3) == msgs
 
 
-def test_crt_half_split_path(key256):
-    """The TPU decrypt splits CRT stage 2 into shared-modulus p/q halves
-    (_crt_stage_exp_half); validate that path against the fused stage on
-    the CPU backend (jnp shared-exponent modexp)."""
-    import jax.numpy as jnp
-    kd, pub, priv = key256
-    B = 4
-    msgs = [rng.randrange(kd["n"]) for _ in range(B)]
-    ct = pub.encrypt(msgs, apply_obfuscator=True)
-    Bp = ct.shape[1]
-    base_m = priv._stage_reduce(ct)
-    u_p = sch._crt_stage_exp_half(base_m[:, :Bp], priv._sq_p,
-                                  priv.dig_p, priv.dec_window)
-    u_q = sch._crt_stage_exp_half(base_m[:, Bp:], priv._sq_q,
-                                  priv.dig_q, priv.dec_window)
-    u = jnp.concatenate([u_p, u_q], axis=1)
-    fused = sch._crt_stage_exp(base_m, priv._sq_ctx(Bp),
-                               priv.exp_digits_pq, priv.n_win_dec)
-    import numpy as np_
-    assert np_.array_equal(np_.asarray(u), np_.asarray(fused))
-    m = sch._crt_stage_recombine(
-        u, priv._p_ctx, priv._q_ctx, priv.pinv_R, priv.qinv_R,
-        priv.hpR, priv.hqR, priv.p_limbs, priv.q_limbs, priv.pinvqR,
-        priv.Lh, priv.Lq, pub.Ln)
-    from pailliercryptolib_python_tpu.ops.limb import limbs_to_ints
-    assert limbs_to_ints(np_.asarray(m))[:B] == msgs
-
-
 def test_device_mr_base2_matches_host():
     """Device-batched base-2 Miller-Rabin == the host _mr_round oracle,
     prime and composite candidates mixed, 512-bit."""

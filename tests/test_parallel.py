@@ -32,7 +32,7 @@ def setup():
 
 def test_mesh_shape(setup):
     _, _, _, mesh = setup
-    assert dict(mesh.shape) == {"dcn_host": 2, "ici_chip": 4}
+    assert dict(mesh.shape) == {"batch_outer": 2, "batch_inner": 4}
 
 
 def test_sharded_elementwise_add(setup):
@@ -162,8 +162,8 @@ def test_sharded_decrypt_no_batch_collectives(setup):
     """CRT decrypt of a batch-sharded ciphertext runs SPMD: the compiled
     program contains NO batch-axis collective (all-gather / all-to-all /
     collective-permute / all-reduce), and the sharded result matches the
-    single-device decrypt (VERDICT r4 next #5 — the expensive half of
-    the op suite partitions along B like everything else)."""
+    single-device decrypt (the expensive half of the op suite partitions
+    along B like everything else)."""
     from pailliercryptolib_python_tpu.parallel import sharded_ops as so
 
     kd, pub, priv, mesh = setup
@@ -199,7 +199,7 @@ def test_sharded_mul_pt_no_batch_collectives(setup):
     fn = next(f for k, f in so._MUL_CACHE.items()
               if k[0] == mesh and k[2] == id(pub))
     plan = pub._rns_mul_plan()
-    w = plan[2] if plan else 4
+    w = sch.window_for(pub.bits) if plan else 4
     digs = mg.exponent_digits(exps, -(-pub.bits // w), w)
     txt = fn.lower(ct, jnp.asarray(digs.astype("uint32"))) \
             .compile().as_text()

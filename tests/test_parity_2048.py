@@ -1,10 +1,10 @@
 """Full-size (2048-bit) parity run of the reference test suite semantics
-(/root/reference/tests/ipcl_python_test.py) — the BASELINE.md bit-exact
-parity gate.
+(the reference's tests/ipcl_python_test.py) — the bit-exact parity
+gate.
 
 Runs in the DEFAULT suite (adds ~90 s on the CPU fallback path); set
-PAILLIER_SKIP_SLOW=1 to skip during quick iteration.  bench.py runs the
-same op suite asserted on the real device every round.
+PAILLIER_SKIP_SLOW=1 to skip during quick iteration.  bench.py and
+chip_smoke.py run the same kind of op suite asserted on the GPU.
 """
 
 import os

@@ -130,7 +130,7 @@ def test_enter_exit_roundtrip():
     kd = fixed_key_ints(256)
     m = kd["p"] * kd["p"]
     L = (m.bit_length() + 2 + 15) // 16
-    sq_ctx = mg.MontCtx.for_modulus(m, min_bits=LIMB_BITS * L, mxu=False)
+    sq_ctx = mg.MontCtx.for_modulus(m, min_bits=LIMB_BITS * L)
     L = sq_ctx.num_limbs
     key = rns.RnsModulus.build(base, m, L)
     R = 1 << (LIMB_BITS * L)
@@ -157,7 +157,7 @@ def test_exp_shared_oracle(ebits):
     kd = fixed_key_ints(256)
     m = kd["q"] * kd["q"]
     L = (m.bit_length() + 2 + 15) // 16
-    sq_ctx = mg.MontCtx.for_modulus(m, min_bits=LIMB_BITS * L, mxu=False)
+    sq_ctx = mg.MontCtx.for_modulus(m, min_bits=LIMB_BITS * L)
     L = sq_ctx.num_limbs
     key = rns.RnsModulus.build(base, m, L)
     R = 1 << (LIMB_BITS * L)
@@ -290,7 +290,7 @@ def test_exp_sched_oracle(ebits):
     kd = fixed_key_ints(256)
     m = kd["q"] * kd["q"]
     L = (m.bit_length() + 2 + 15) // 16
-    sq_ctx = mg.MontCtx.for_modulus(m, min_bits=LIMB_BITS * L, mxu=False)
+    sq_ctx = mg.MontCtx.for_modulus(m, min_bits=LIMB_BITS * L)
     L = sq_ctx.num_limbs
     key = rns.RnsModulus.build(base, m, L)
     R = 1 << (LIMB_BITS * L)

@@ -20,7 +20,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# force CPU: doc generation must never grab the TPU
+# force CPU: doc generation must never reserve a GPU
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 try:
     import jax
